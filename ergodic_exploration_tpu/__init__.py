@@ -1,12 +1,12 @@
-"""TPU-native ergodic-exploration MPC engine.
+"""Batched ergodic-exploration MPC engine for the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the C++/ROS
 reference ``bostoncleek/ergodic_exploration`` (receding-horizon ergodic
 control; see SURVEY.md at the repo root for the capability map). Instead of
 one robot replanning at 10 Hz on a CPU core, this engine batches thousands of
-(map, start-pose) scenarios per step across a TPU device mesh.
+(map, start-pose) scenarios per step across a device mesh.
 
-Layer map (mirrors SURVEY.md section 2's L0-L5, redesigned TPU-first):
+Layer map (mirrors SURVEY.md section 2's L0-L5, redesigned for batching):
 
 - L0 numerics  -> :mod:`ergodic_exploration_tpu.utils.numerics`
 - L1 world     -> :mod:`ergodic_exploration_tpu.grid`,

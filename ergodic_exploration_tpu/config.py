@@ -68,7 +68,7 @@ class DwaConfig:
 class EngineConfig:
     """Full controller + engine configuration.
 
-    Mirrors (and extends, for the batched/TPU side) the reference's rosparam
+    Mirrors (and extends, for the batched engine) the reference's rosparam
     set listed in SURVEY.md section 4.1: dt, horizon, exploration weight,
     basis size, buffer sizes, control limits, R diagonal, wheel geometry,
     collision radii, DWA parameters.
@@ -88,9 +88,8 @@ class EngineConfig:
     # gamma: weight on the ergodic gradient. Round-5 retune (20 -> 200): at
     # 20 the default closed loop explored at ~0.03 m/s — correct but far
     # below the reference demos' robot speeds; 200 gives ~0.1-0.2 m/s mean
-    # exploration speed on the config-4 quality map (docs/PERFORMANCE.md
-    # round 5; the exploration-rate floor is pinned by
-    # tests/test_quality.py).
+    # exploration speed on the config-4 quality map (the exploration-rate
+    # floor is pinned by tests/test_quality.py).
     ergodic_weight: float = 200.0
     barrier_weight: float = 1.0  # beta: weight on barrier gradients
     # diag of R (len = model nu). The natural scale is (wheel-map gain)^2:
@@ -111,11 +110,8 @@ class EngineConfig:
     # ONE history-batch index draw shared by every scenario per tick (the
     # draw stays uniform per scenario — scenarios tick together, so their
     # buffer counts are equal; only CROSS-scenario sampling correlation is
-    # introduced, which independent solves never observe). Lets the batched
-    # compaction run as one shared-one-hot GEMM instead of per-scenario
-    # one-hot machinery — measured ~1.2 ms/tick at S=4096 on v5e. Engine
-    # init gives all scenarios the same RNG key under this flag, so the
-    # vmapped and fused paths stay bit-identical.
+    # introduced, which independent solves never observe). Engine init gives
+    # all scenarios the same RNG key under this flag.
     shared_history_draw: bool = False
 
     # --- collision / barrier (L1 world + costs) ---
@@ -126,8 +122,7 @@ class EngineConfig:
     # H * dt * v_max (~0.4 m = 8 cells cart / ~0.6 m omni at defaults) plus
     # bilinear support and margin; map access outside the patch clamps to
     # its edge. See ops/patch.py. 24 cells = a +-0.6 m window (50% margin
-    # over the cart's reach); extraction cost scales ~P^2 (round-3 ablation:
-    # 32 -> 24 saves 0.32 ms/tick at S=4096).
+    # over the cart's reach); extraction cost scales ~P^2.
     patch_cells: int = 24
     # Central sub-window of the patch used for the safety stage's queries
     # (validation + DWA). Must cover the vel-limited reachable set of one
@@ -145,7 +140,7 @@ class EngineConfig:
     # 0.2): at 0.5 the barrier band reached 0.7 m from every obstacle, so
     # on maps with ~1.3 m doorways the bands from facing walls OVERLAPPED
     # and sealed every passage — the fleet plateaued at ~35% coverage with
-    # robots parked at band-edge equilibria (docs/PERFORMANCE.md round 5).
+    # robots parked at band-edge equilibria.
     # Hard safety is unaffected: validation/DWA reject on d <= 0 contact,
     # not on d_safe.
     d_safe: float = 0.2
@@ -161,7 +156,7 @@ class EngineConfig:
     # FREE space (the reachable frontier) — SURVEY.md A.3 "masked to known-
     # free-adjacent cells". 0 = legacy all-unknown weighting, which puts
     # most phi mass on deep-unknown space behind walls and pulls robots
-    # into them (measured round 5, docs/PERFORMANCE.md).
+    # into them (measured in closed-loop coverage runs).
     mi_frontier_cells: int = 3
 
     # --- failure detection: orbit guard ---
@@ -179,30 +174,12 @@ class EngineConfig:
 
     # --- numerics / scale-out ---
     precision: str = "fp32"  # "fp32" | "bf16" (bf16 basis matmul inputs, fp32 accum)
-    use_pallas: bool = True  # fused ergodic-reduction kernel where profitable
-    # Fused Pallas descent core for the batched Engine replan (rollout ->
-    # basis -> gradient -> barrier -> co-state -> update in ONE kernel;
-    # ops/solve_kernel.py). Semantics match the vmapped controller to fp32
-    # reassociation (~1e-6). Off by default: the interpreter path is slow on
-    # CPU; bench/TPU runs enable it.
-    use_fused_solve: bool = False
     # All scenarios share ONE map (fleet-on-a-shared-map batching). Lets the
     # masked target refresh fold the free-space mask into the dense basis
-    # table (engine._phik_from_gmm_fn) so masking costs nothing instead of an
-    # (S, N) HBM pass — measured ~1 ms/tick at S=4096 on v5e — and, on the
-    # fused path, moves patch extraction INSIDE the solve kernel (the shared
-    # map rides along as three exact bf16 chunks; ops/solve_kernel.py
-    # section 0) so the XLA one-hot extraction and its (S, P, P) transposes
-    # disappear. Semantics are identical when every scenario's map (hence
-    # free mask / distance field) is the same row.
+    # table (engine._phik_from_gmm_fn), so masking costs nothing instead of
+    # an (S, N) pass over device memory. Semantics are identical when every
+    # scenario's map (hence free mask / distance field) is the same row.
     shared_maps: bool = False
-    # Scenario-tile width (lanes) of the fused Pallas kernels. Must be a
-    # power of two >= 128 (Mosaic lane-dim block constraint); S not divisible
-    # falls back to smaller powers of two automatically. Sweepable on
-    # hardware (tools/tpu_patch_ab.py): 128 measured best at S=4096 on v5e
-    # (256 exceeded scoped VMEM once the round-4 bit-packed safety planes
-    # became resident; 512 OOM'd before that).
-    solve_tile: int = 128
     # Validate the shared-geometry contracts (shared_maps / dense shared-
     # domain refresh) at the Python API edge: concrete operands are checked
     # host-side ONCE per distinct array object and misuse raises ValueError
@@ -212,9 +189,8 @@ class EngineConfig:
     validate_shared: bool = True
     # Unroll factor for the short sequential RK4 scans (rollout + co-state).
     # Per-step bodies are tiny (batch, 3) ops, so unrolling lets XLA fuse
-    # across steps; sweepable on hardware (static -> recompiles on change).
-    # Measured on v5e at S=4096 (tools/tpu_tune.py): 1 -> 15.6 ms/step,
-    # 4 -> 16.1, 8 -> 15.1, 20 (full horizon) -> 14.9. Full unroll wins.
+    # across steps; static, so a change recompiles. Default: the full
+    # horizon.
     scan_unroll: int = 20
 
     @property
@@ -288,6 +264,66 @@ def _as_bool(val) -> bool:
     raise ValueError(f"cannot interpret {val!r} as a bool config value")
 
 
+def _yaml_scalar(text: str):
+    """One flat-YAML scalar: null, bool, int, float, or (quoted) string."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "\"'":
+        return t[1:-1]
+    low = t.lower()
+    if low in ("", "~", "null"):
+        return None
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    for conv in (int, float):
+        try:
+            return conv(t)
+        except ValueError:
+            pass
+    return t
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` up to a ``#`` that starts a comment (outside quotes, at the
+    start or after whitespace)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
+            return line[:i]
+    return line
+
+
+def parse_flat_yaml(text: str) -> dict:
+    """Parse the flat ``key: value`` schema of ``config/*.yaml``.
+
+    Supports scalars, inline lists (``[a, b]``) and ``#`` comments — the
+    subset the reference's rosparam files use — so loading a config needs
+    nothing beyond the standard library. Nested mappings are rejected.
+    """
+    out = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        body = _strip_comment(line).rstrip()
+        if not body.strip():
+            continue
+        if body[0].isspace() or ":" not in body:
+            raise ValueError(f"line {lineno}: expected a flat 'key: value', got {line!r}")
+        key, val = body.split(":", 1)
+        val = val.strip()
+        if val.startswith("["):
+            if not val.endswith("]"):
+                raise ValueError(f"line {lineno}: unterminated list {val!r}")
+            inner = val[1:-1].strip()
+            out[key.strip()] = [_yaml_scalar(v) for v in inner.split(",")] if inner else []
+        else:
+            out[key.strip()] = _yaml_scalar(val)
+    return out
+
+
 def load_yaml_config(path_or_dict) -> EngineConfig:
     """Build an :class:`EngineConfig` from a reference-style YAML file or dict.
 
@@ -298,10 +334,8 @@ def load_yaml_config(path_or_dict) -> EngineConfig:
     if isinstance(path_or_dict, dict):
         raw = dict(path_or_dict)
     else:
-        import yaml
-
         with open(path_or_dict) as f:
-            raw = yaml.safe_load(f) or {}
+            raw = parse_flat_yaml(f.read())
 
     model = raw.pop("model", "cart")
     cfg = default_config(model)

@@ -9,7 +9,7 @@ emitted control, and fall back to DWA on collision (SURVEY.md sections 2 L3,
 4.2 — the hot path — and Appendix A; one descent step per replan, warm
 started, receding-horizon SAC style).
 
-TPU-first redesign:
+Design:
 - The controller is a hashable dataclass of pure functions; ``step`` is one
   fused computation (rollout scan -> basis matmuls -> backward scan ->
   saturation -> masked safety select) that jits once and vmaps over
@@ -18,7 +18,7 @@ TPU-first redesign:
   unconditionally and selected with ``jnp.where`` — batch-uniform control
   flow (SURVEY.md section 8).
 - History enters c_k either as a reference-parity ring buffer or as an O(K^2)
-  running basis-sum ("accumulate" mode, the TPU fast path).
+  running basis-sum ("accumulate" mode, the fast path).
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ class ErgodicController:
 
         # Local distance-field window around the pose: every map query this
         # tick (barrier knots, validation, DWA candidates) goes through it
-        # as one-hot/hat matmuls — no TPU gathers (ops/patch.py).
+        # as one-hot/hat matmuls — no gathers (ops/patch.py).
         patch = extract_patch(world.dist, x[:2], cfg.patch_cells)
 
         # 0. orbit guard: reset the warm start when the scenario is circling

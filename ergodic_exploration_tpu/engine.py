@@ -16,7 +16,7 @@ Parallelism (SURVEY.md section 3 "Parallelism inventory"):
   the whole step with zero cross-scenario communication, which is exactly
   the reference workload repeated 4096x.
 - Cross-host: the same code runs under ``jax.distributed.initialize`` with a
-  multi-host mesh; the leading axis then spans hosts (DCN) transparently.
+  multi-host mesh; the leading axis then spans hosts transparently.
 
 Solver state is donated across ticks, so warm-started control sequences and
 replay buffers never round-trip through HBM copies.
@@ -97,50 +97,8 @@ class Engine:
         self._tick_one = _tick
 
         # batched cores (scenario axis = leading axis everywhere)
-        if config.use_fused_solve:
-            from ergodic_exploration_tpu.ops.solve_kernel import replan_batched_fused
-
-            def _fused(st, x, vb, ph, wo):
-                return replan_batched_fused(self.config, model, st, x, vb, ph, wo)
-
-            if mesh is not None:
-                # Explicitly partition the fused path over the scenario axis:
-                # a pallas_call is an opaque custom call to GSPMD, so without
-                # shard_map the mesh would fall back to replicated compute.
-                # Every operand/output leaf carries the scenario axis first;
-                # the solve has zero cross-scenario communication, so specs
-                # are a uniform P('scenario') prefix. Shared-map/shared-draw
-                # reads of row 0 see the LOCAL shard's row 0 — identical by
-                # the shared contracts.
-                from jax import shard_map
-
-                spec = P(self.SCENARIO_AXIS)
-
-                def _fused_sharded(st, x, vb, ph, wo):
-                    # check_vma=False: pallas_call out_shapes carry no vma
-                    # annotation; there are no collectives to validate here
-                    # anyway (scenario-parallel, zero cross-shard comms)
-                    return shard_map(
-                        _fused,
-                        mesh=self.mesh,
-                        in_specs=(spec, spec, spec, spec, spec),
-                        out_specs=spec,
-                        check_vma=False,
-                    )(st, x, vb, ph, wo)
-
-                self._replan_batched = _fused_sharded
-            else:
-                self._replan_batched = _fused
-
-            def _tick_batched(state, x, vb, phik, world):
-                state, u, diag = self._replan_batched(state, x, vb, phik, world)
-                x_next = jax.vmap(lambda xx, uu: rollout(model, xx, uu[None, :], dt)[-1])(x, u)
-                return state, x_next, model.twist(u), u, diag
-
-            self._tick_batched = _tick_batched
-        else:
-            self._replan_batched = jax.vmap(ctrl.step)
-            self._tick_batched = jax.vmap(_tick)
+        self._replan_batched = jax.vmap(ctrl.step)
+        self._tick_batched = jax.vmap(_tick)
 
         self._replan_jit = self._shard_jit(self._replan_fn, donate=(0,))
         self._explore_jit = self._shard_jit(self._explore_fn, static_argnums=(3,), donate=(0,))
@@ -260,8 +218,7 @@ class Engine:
             rng = jax.random.PRNGKey(0)
         if self.config.shared_history_draw:
             # one key for ALL scenarios: per-scenario history draws are then
-            # identical each tick, which the fused path exploits as a single
-            # shared-one-hot compaction GEMM (see config.shared_history_draw)
+            # identical each tick (see config.shared_history_draw)
             keys = jax.vmap(lambda _: rng)(jnp.arange(S))
         else:
             keys = jax.random.split(rng, S)  # process-independent
@@ -325,9 +282,9 @@ class Engine:
 
         Shared-domain fast path: when ``domain`` is unbatched, the sample
         lattice and the dense basis table D (N, K^2) are scenario-invariant,
-        so the whole batch reduces in one (S, N) @ (N, K^2) MXU matmul —
-        this is the "10k grid samples" reduction of the headline metric laid
-        out the TPU way (no per-scenario (N, K) tables).
+        so the whole batch reduces in one (S, N) @ (N, K^2) matmul — the
+        "10k grid samples" reduction of the headline metric with no
+        per-scenario (N, K) tables.
 
         ``free_mask``: optional (S, N) free-space weights; phi is masked
         before normalization (reference A.3 "normalized over free space")."""
@@ -342,14 +299,8 @@ class Engine:
         cfg = self.config
         K = cfg.num_basis
         if domain.origin.ndim == 1:  # shared domain -> dense-table path
-            # NOTE (round-3 measurement): a SEPARABLE two-matmul contraction
-            # (9x fewer flops) was tried here and measured 3.4x SLOWER than
-            # the dense path on v5e — K=10-wide matmul outputs use ~8% of
-            # the 128-wide MXU, while the dense (N, K^2 = 100) table keeps
-            # it full. Utilization beats flop count at these shapes.
             pts = domain.sample_lattice(cfg.grid_samples)
             hk = basis.hk_norm(K, domain.lengths)
-            S = gmm.means.shape[0]
             tbl = basis.tables(pts, K, domain)
             D = basis.dense_table(tbl, hk)
             renorm = None
@@ -361,7 +312,7 @@ class Engine:
                 # phi@m = h00 * ck_raw[0,0] * sum(phi), so the true
                 # free-space-normalized ck = ck_raw / (h00 * ck_raw[0,0]) —
                 # the masked refresh costs exactly the unmasked refresh
-                # (no (S, N) mask traffic; ~1 ms/tick at S=4096 on v5e).
+                # (no (S, N) mask traffic).
                 m = free_mask[0] if free_mask.ndim == 2 else free_mask
                 D = D * m.astype(D.dtype)[:, None]
                 renorm = hk[0, 0]
@@ -384,15 +335,6 @@ class Engine:
                     mask_ck[None, :, :],
                 )
 
-            if cfg.use_pallas and S % 8 == 0:
-                # fused Pallas kernel: GMM eval + mask + normalize +
-                # contraction in one VMEM-resident pass (ops/pallas_kernels.py)
-                from ergodic_exploration_tpu.ops.pallas_kernels import phik_from_gmm_pallas
-
-                out = phik_from_gmm_pallas(
-                    gmm.means, gmm.covs, gmm.weights, pts, D, free_mask=free_mask
-                )
-                return _renorm(out.reshape(S, K, K))
             if free_mask is None:
                 phi = jax.vmap(lambda g: target_ops.gmm_target_values(pts, g))(gmm)
             else:
@@ -434,7 +376,7 @@ class Engine:
         """Traceable phi_k with the GRID-SAMPLE axis sharded across the
         mesh's ``sample`` dimension — this project's sequence-parallelism
         analog (SURVEY.md sections 3 and 6: the "long axis" is the
-        10k-sample ergodic reduction, combined with ICI ``psum``
+        10k-sample ergodic reduction, combined with ``psum``
         collectives). Composes under the engine's jitted tick, so
         :meth:`replan_refresh` rides it when the mesh has a sample axis.
 
@@ -574,7 +516,7 @@ class Engine:
         one-hot contraction of ops/target.py — config 4's per-tick refresh;
         parity vs the gather path is pinned by tests/test_target.py).
         General per-scenario geometry; for a SHARED domain the batched
-        dense path (:meth:`_phik_grid_batch_dense_fn`) keeps the MXU full."""
+        dense path (:meth:`_phik_grid_batch_dense_fn`) batches the work."""
         cfg = self.config
         return target_ops.phik_from_grid_separable(
             g, cfg.num_basis, cfg.grid_samples,
@@ -591,9 +533,7 @@ class Engine:
         ONE (S, N) @ (N, K^2) dense contraction. Same values as the
         separable/gather paths (parity-pinned by tests/test_target.py).
 
-        TPU layout choices (all measured on v5e):
-        - wide-output matmuls keep the 128-lane MXU full (the narrow K=10
-          contraction measured 3.4x slower — see the GMM-path note);
+        Layout choices:
         - the box blur is LINEAR, so blur-then-sample folds into exact
           small-integer count matrices (target_ops.blur_count_matrix) at
           trace time — the blur's cumsum passes over (S, H, W) disappear
@@ -601,7 +541,8 @@ class Engine:
         - the occupied-cell zeroing happens AFTER the blur in
           mutual_information_map; nearest-cell sampling commutes with
           elementwise products, so it becomes a resampled 0/1 mask — a
-          bf16-exact DEFAULT-precision one-hot matmul.
+          one-hot matmul that is exact at DEFAULT precision (0/1 and small
+          integer operands survive bf16 and TF32 rounding).
         """
         from ergodic_exploration_tpu.ops import basis
 
@@ -620,7 +561,7 @@ class Engine:
         # sharded MI path documents the same assumption): sampling + blur
         # matrices are built ONCE from scenario 0's geometry, so the whole
         # batch reduces through shared-RHS batched GEMMs instead of
-        # per-scenario matrix construction under vmap (~1-2 ms at S=4096).
+        # per-scenario matrix construction under vmap.
         g0 = jax.tree.map(lambda a: a[0], grids)
         Ax, Ay = target_ops.sampling_one_hots(g0, cfg.grid_samples, domain)
         Bx = target_ops.blur_count_matrix(w, r)
@@ -645,10 +586,9 @@ class Engine:
             # Frontier mask (target_ops.frontier_adjacency): nearest-cell
             # sampling commutes with elementwise products AND monotone
             # thresholds, so instead of masking in cell space (which would
-            # unfold the blur and cost explicit (S, h, w) transposes —
-            # measured +1.45 ms/tick at S=4096, round 5) the known-free
-            # COUNT field is sampled through count-folded one-hots
-            # (Ax @ Fx, small ints <= (2fc+1)^2, bf16-exact) and
+            # unfold the blur and cost explicit (S, h, w) transposes) the
+            # known-free COUNT field is sampled through count-folded one-hots
+            # (Ax @ Fx, small ints <= (2fc+1)^2, exact at DEFAULT) and
             # thresholded at the lattice: sample(adj (.) blur(E)) ==
             # (sample counts > 0) (.) sample(blur(E)) exactly.
             kf = ((grids.data >= 0.0) & (~grids.occupied(occ_t))).astype(jnp.float32)
@@ -678,8 +618,8 @@ class Engine:
         sharded reduction when the mesh has a populated ``sample`` axis.
 
         ``domain``: pass the (unbatched) shared exploration domain when all
-        grids share it — enables the dense wide-matmul path (~2x faster);
-        omitted, the general per-scenario separable path runs."""
+        grids share it — enables the dense batched path; omitted, the
+        general per-scenario separable path runs."""
         r = sensor_radius_cells
         if (
             self.mesh is not None
@@ -822,47 +762,7 @@ class Engine:
         """Target refresh (10k-sample phi_k reduction, free-space masked) +
         batched solve in one trace — the reference's FULL per-tick work
         (SURVEY.md section 4.2 step 1 + steps 2-7). This is the benchmarked
-        'solve'.
-
-        One-kernel fast path (round 4, un-gated on meshes round 5): with
-        the fused solve + shared maps on a shared domain (the bench
-        configuration), the refresh runs INSIDE the merged Pallas kernel
-        (solve_kernel.py in-kernel refresh) — the whole tick is one
-        program. On a scenario mesh the kernel runs under the same
-        shard_map wrap as the fused solve (purely scenario-parallel: the
-        refresh operands are scenario-sharded or scenario-invariant, zero
-        collectives; shared row-0 reads see the LOCAL shard's row 0,
-        identical by the shared contracts). Only a mesh with a populated
-        SAMPLE axis keeps the separate sample-sharded refresh stage."""
-        cfg = self.config
-        if (
-            cfg.use_fused_solve
-            and cfg.shared_maps
-            and domain.origin.ndim == 1
-            and not self._use_sample_sharding(domain)
-        ):
-            from ergodic_exploration_tpu.ops.solve_kernel import replan_batched_fused
-
-            def _one_kernel(st, x, vb, wo, gm):
-                return replan_batched_fused(
-                    cfg, self.controller.model, st, x, vb, None, wo,
-                    gmm=gm, domain=domain,
-                )
-
-            if self.mesh is not None:
-                from jax import shard_map
-
-                spec = P(self.SCENARIO_AXIS)
-                state, u, diag = shard_map(
-                    _one_kernel,
-                    mesh=self.mesh,
-                    in_specs=(spec, spec, spec, spec, spec),
-                    out_specs=spec,
-                    check_vma=False,
-                )(sc.state, sc.x, sc.vb, world, gmm)
-            else:
-                state, u, diag = _one_kernel(sc.state, sc.x, sc.vb, world, gmm)
-            return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
+        'solve'."""
         phik = self._phik_from_gmm_fn(gmm, domain, world.free_mask)
         return self._replan_fn(sc, phik, world)
 
@@ -877,41 +777,21 @@ class Engine:
 
     def _refresh_mi_and_replan_fn(self, sc: Scenarios, grids: GridMap,
                                   world: World, sensor_radius_cells: int,
-                                  domain: Optional[Domain] = None,
-                                  use_mi_kernel: bool = False,
-                                  padded_data=None):
+                                  domain: Optional[Domain] = None):
         """MI target refresh from the evolving occupancy grids + batched
         solve in one trace — BASELINE config 4's FULL per-tick work
         ("mutual-information target recomputed from an evolving occupancy
         grid each replan", SURVEY.md sections 3 and 4.3). Gather-free: the
         sample-axis-sharded psum reduction when the mesh has a populated
-        ``sample`` axis (same dispatch as standalone :meth:`phik_from_grid`
-        — VERDICT r3 weak 4), else the dense resample+contract path when a
-        shared ``domain`` is given, else the per-scenario separable
-        contraction (ops/target.py)."""
+        ``sample`` axis (same dispatch as standalone :meth:`phik_from_grid`),
+        else the dense resample+contract path when a shared ``domain`` is
+        given, else the per-scenario separable contraction (ops/target.py)."""
         if (
             self.mesh is not None
             and self.SAMPLE_AXIS in self.mesh.axis_names
             and self.mesh.shape[self.SAMPLE_AXIS] > 1
         ):
             phik = self._phik_grid_sharded_fn(grids, sensor_radius_cells)
-        elif use_mi_kernel and domain is not None and domain.origin.ndim == 1:
-            # VMEM-resident Pallas MI refresh (ops/mi_kernel.py): entropy +
-            # roll-blur + free mask + resample-folded cosine contraction in
-            # one pass over the NATIVE (S*h, w) belief layout — no (S, H, W)
-            # entropy or (S, h, nsx) intermediates through HBM
-            from ergodic_exploration_tpu.ops.mi_kernel import (
-                phik_from_grid_pallas,
-            )
-
-            g0 = jax.tree.map(lambda a: a[0], grids)
-            phik = phik_from_grid_pallas(
-                grids.data if padded_data is None else padded_data,
-                g0, domain, self.config.num_basis,
-                self.config.grid_samples, sensor_radius_cells,
-                occupied_threshold=self.config.occupied_threshold,
-                frontier_cells=self.config.mi_frontier_cells,
-            )
         elif domain is not None and domain.origin.ndim == 1:
             phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells)
         else:
@@ -922,31 +802,26 @@ class Engine:
 
     def replan_refresh_mi(self, sc: Scenarios, grids: GridMap, world: World,
                           sensor_radius_cells: int = 0,
-                          domain: Optional[Domain] = None,
-                          use_mi_kernel: bool = False,
-                          padded_data=None):
+                          domain: Optional[Domain] = None):
         """One batched tick including the per-tick MUTUAL-INFORMATION target
-        refresh (config 4's hot path; what bench.py's MI metric measures).
+        refresh (config 4's hot path).
         ``world`` carries the distance field built from the same beliefs at
         map cadence (the reference's ~1 Hz SLAM refresh vs its 10 Hz control
         loop, SURVEY.md section 4.3). Pass the shared ``domain`` when all
-        grids span it — the refresh then rides the dense wide-matmul path."""
+        grids span it — the refresh then rides the dense batched path."""
         self._check_shared_world(world)
         if domain is not None and domain.origin.ndim == 1:
             self._check_shared_grids(grids)  # dense path: scenario-0 geometry
         jits = getattr(self, "_replan_refresh_mi_jits", None)
         if jits is None:
             jits = self._replan_refresh_mi_jits = {}
-        key = (sensor_radius_cells,
-               domain is not None and domain.origin.ndim == 1, use_mi_kernel,
-               padded_data is None)
+        key = (sensor_radius_cells, domain is not None and domain.origin.ndim == 1)
         f = jits.get(key)
         if f is None:
             f = self._shard_jit(self._refresh_mi_and_replan_fn,
-                                static_argnums=(3, 5), donate=(0,))
+                                static_argnums=(3,), donate=(0,))
             jits[key] = f
-        return f(sc, grids, world, sensor_radius_cells, domain, use_mi_kernel,
-                 padded_data)
+        return f(sc, grids, world, sensor_radius_cells, domain)
 
     def _explore_fn(self, sc: Scenarios, phik, world: World, n_ticks: int):
         def body(carry, _):

@@ -4,7 +4,7 @@ Reference capability: ``GridMap`` (``grid.hpp``/``src/grid.cpp`` — world<->gri
 transforms, row-major indexing, occupancy-probability accessors, updates from
 ``nav_msgs/OccupancyGrid``; SURVEY.md section 2 L1 and section 3).
 
-TPU-first redesign: a map is a plain ``(H, W)`` float array plus a small
+Design: a map is a plain ``(H, W)`` float array plus a small
 pytree of geometry, so thousands of maps batch on a leading axis and every
 transform is a pure vectorized function. ROS int8 semantics (-1 unknown,
 0..100 occupied-percent) are converted at the boundary by

@@ -3,7 +3,7 @@
 Reference capability: model functors with ``operator()(x,u) -> xdot``,
 ``fdx(x,u) -> A``, ``fdu(x) -> B`` (``cart.hpp`` / ``omni.hpp``; SURVEY.md
 section 2 L2). The reference templates the controller on the model type at
-compile time (``ErgodicControl<ModelT>``); the TPU-native equivalent is a
+compile time (``ErgodicControl<ModelT>``); the JAX equivalent is a
 hashable frozen dataclass of pure jnp methods closed over by ``jax.jit`` —
 the same zero-cost static dispatch, realized through tracing.
 

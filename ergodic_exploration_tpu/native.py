@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (native/runtime.cc).
 
 Reference counterpart: the reference's runtime IS native C++ (ROS node,
-Armadillo); the build keeps the TPU compute path in JAX/XLA and moves the
+Armadillo); the build keeps the device compute path in JAX/XLA and moves the
 host-side runtime work — ROS-convention map ingest, the exact EDT + gradient
 (replacing per-pose Bresenham searches), entropy maps, and multi-threaded
 batch preprocessing that feeds the device — into this C++ library.

@@ -1,13 +1,13 @@
-"""Cosine Fourier basis on the rectangular domain — the MXU-native core.
+"""Cosine Fourier basis on the rectangular domain — the matmul-shaped core.
 
 Reference capability: ``Basis`` (``basis.hpp``/``src/basis.cpp``): multi-index
 set k in {0..K-1}^2, ``fourierBasis``/``gradFourierBasis``, trajectory
 coefficients c_k, spatial coefficients phi_k, Sobolev weights Lambda_k
 (SURVEY.md sections 2 L3, 3, and A.1/A.3).
 
-TPU-first redesign (SURVEY.md section 8 "hard parts"): the reference loops
-over all K^2 indices per point. Here the separable cosine structure is
-exploited so every reduction is a small matmul feeding the MXU:
+Design (SURVEY.md section 8 "hard parts"): the reference loops over all K^2
+indices per point. Here the separable cosine structure is exploited so
+every reduction is a small matmul:
 
     F_k(p)   = cos(k1 a1 x) cos(k2 a2 y) / h_k,   a_i = pi / L_i
     c_k      = (Cx * w)^T @ Cy / h            -- one (K,N)@(N,K) matmul
@@ -30,11 +30,11 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# The K^2-coefficient reductions need true fp32 operands: the TPU MXU's
-# default precision rounds matmul inputs to bf16 (~1e-3 relative), which
-# alone would eat the whole 1e-3 RMS parity budget (SURVEY.md section 8).
-# These matmuls are (N, K)@(K, K) with K ~ 10 — full-precision passes are
-# free next to the HBM traffic.
+# The K^2-coefficient reductions need true fp32 operands: DEFAULT precision
+# rounds float32 matmul inputs (to TF32 on the GPU, ~3e-4 relative
+# measured), eating into the 1e-3 RMS parity budget (SURVEY.md section 8).
+# These matmuls are (N, K)@(K, K) with K ~ 10 — IEEE float32 is cheap next
+# to the memory traffic.
 _EXACT = jax.lax.Precision.HIGHEST
 
 
@@ -116,9 +116,9 @@ def dense_table(tbl: BasisTables, hk):
     """Flattened dense basis table D[n, k1*K + k2] = F_k(p_n): (N, K^2).
 
     For a sample lattice SHARED across scenarios (the common batched-target
-    case) this is the TPU-native phi_k layout: computed once (~K^2 * N * 4
+    case) this is the batched phi_k layout: computed once (~K^2 * N * 4
     bytes), after which a batch of targets reduces in ONE (S, N) @ (N, K^2)
-    MXU matmul — no per-scenario (N, K) tables and no (S, N, K)
+    matmul — no per-scenario (N, K) tables and no (S, N, K)
     intermediates. See Engine.phik_from_gmm.
     """
     N, K = tbl.Cx.shape
@@ -145,7 +145,7 @@ def coefficients_separable(phi_grid, cosx, cosy, hk):
     The lattice of ``Domain.sample_lattice`` is an outer product of per-axis
     points, so the dense (N, K^2) table contraction factorizes into TWO
     small matmuls — (S*nsx, nsy)@(nsy, K) then (S*K, nsx)@(nsx, K) — ~9x
-    fewer MXU flops at K=10, N=10^4 than the dense path, full fp32.
+    fewer flops at K=10, N=10^4 than the dense path, full fp32.
     ``ck_raw[s, 0, 0] * hk[0, 0]`` is sum(phi) (cos 0 = 1), so the caller
     normalizes for free. phi_grid: (S, nsx, nsy) — x-major, the reshape of
     the (S, N) lattice values."""
@@ -159,9 +159,11 @@ def coefficients_separable(phi_grid, cosx, cosy, hk):
 def coefficients_dense(phi_batch, D, K: int):
     """Batched coefficients via the dense table: (S, N) @ (N, K^2) -> (S, K, K).
 
-    HIGH precision (3-pass bf16) with fp32 accumulation: measured 1.2e-5
-    relative error on this contraction — two orders inside the 1e-3 parity
-    budget — at ~20% less MXU time than HIGHEST on the (S, 10k) shapes."""
+    HIGH precision with fp32 accumulation. On the H100 HIGH runs as one
+    TF32 pass: 3.1e-4 of the largest coefficient on the (4096, 10k)
+    refresh shapes, and the tick's controls stay at 1.1e-6 RMS from the
+    NumPy oracle (H100 measurements in PERF.md) — inside the 1e-3 parity
+    budget."""
     S = phi_batch.shape[0]
     out = jnp.matmul(
         phi_batch, D, precision=jax.lax.Precision.HIGH, preferred_element_type=jnp.float32

@@ -6,23 +6,20 @@ predicted trajectory before computing c_k — so the time-average includes
 history and the robot does not re-cover visited space (SURVEY.md sections 2
 L3 and 3).
 
-TPU-first (SURVEY.md section 8 "replay buffer under jit"): fixed capacity +
+Accelerator-first (SURVEY.md section 8 "replay buffer under jit"): fixed capacity +
 write cursor + validity mask — no dynamic shapes anywhere. Two history modes
 are exposed via the controller config:
 
 - ``ring``: reference-parity bounded window (forgets once full).
 - ``accumulate``: running sum of basis values over ALL visited states — an
-  O(K^2)-per-append exact c_k with unbounded effective history; the
-  TPU-native fast path (no per-solve O(capacity K^2) reduction).
+  O(K^2)-per-append exact c_k with unbounded effective history; the fast
+  path (no per-solve O(capacity K^2) reduction).
 
-Layout notes (v5e profiling):
-- States are stored TRANSPOSED, (2, capacity): with (capacity, 2) the
-  coordinate axis lands on TPU lanes (2 of 128 used) and every append blend
-  and compaction matmul pays a 64x lane-padding tax. Batched append at
-  S=4096 measured 1.66 ms in the (cap, 2) layout.
+Layout notes:
+- States are stored TRANSPOSED, (2, capacity), so the capacity axis is the
+  long, contiguous one for the append blend and the compaction matmul.
 - With-replacement draws use a stateless integer hash (lowbias32) instead
-  of vmapped threefry: per-scenario `jax.random.uniform` measured ~1.2 ms
-  per step at S=4096 for 100 draws; sampling replay indices needs speed and
+  of vmapped threefry: sampling replay indices needs speed and
   determinism, not cryptographic quality.
 """
 
@@ -86,9 +83,9 @@ class RingBuffer(NamedTuple):
     def append(self, p) -> "RingBuffer":
         """Append one visited position (2,); overwrites oldest when full.
 
-        One-hot blend instead of dynamic_update_slice: XLA lowers batched
-        dynamic updates with traced offsets to the slow TPU scatter path,
-        while the blend is pure elementwise work (round-1 profiling)."""
+        One-hot blend instead of dynamic_update_slice: batched dynamic
+        updates with traced offsets lower to a scatter, while the blend is
+        pure elementwise work that fuses."""
         cap = self.capacity
         hot = (jnp.arange(cap) == self.cursor)[None, :]  # (1, cap)
         states = jnp.where(hot, p[:2, None], self.states)
@@ -123,8 +120,8 @@ class RingBuffer(NamedTuple):
         cap = self.capacity
         idx = self._draw_indices(batch, rng)
         # multiplicity counts via comparison-reduce, NOT scatter-add:
-        # .at[idx].add lowers to the slow TPU scatter path under vmap, the
-        # (batch, cap) comparison fuses into one elementwise+reduce loop.
+        # .at[idx].add lowers to a scatter under vmap, the (batch, cap)
+        # comparison fuses into one elementwise+reduce loop.
         counts = jnp.sum(
             (idx[:, None] == jnp.arange(cap)[None, :]).astype(jnp.float32), axis=0
         )
@@ -142,7 +139,7 @@ class RingBuffer(NamedTuple):
         cap = self.capacity
         idx = self._draw_indices(batch, rng)
         onehot = (idx[None, :] == jnp.arange(cap)[:, None]).astype(jnp.float32)
-        # (2, cap) @ (cap, batch): batch on lanes, MXU-shaped
+        # (2, cap) @ (cap, batch): one small matmul per scenario
         states = jnp.matmul(self.states, onehot, precision=jax.lax.Precision.HIGHEST)
         n = jnp.where(self.count > 0, jnp.float32(batch), 0.0)
         return states.T, n

@@ -5,7 +5,7 @@ distance ``minDistance`` and direction ``minDirection`` found by a
 Bresenham-circle occupied-cell search around a pose (SURVEY.md sections 2 L1
 and 3 "Collision detection").
 
-TPU-first redesign (as planned in SURVEY.md section 3's collision row): the
+Design (as planned in SURVEY.md section 3's collision row): the
 per-pose ray-march is replaced by an EXACT Euclidean distance transform
 computed once per map per replan, after which every distance/direction query
 is an O(1) bilinear gather — the same semantics, regular-grid parallel.

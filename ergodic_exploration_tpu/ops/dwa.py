@@ -6,7 +6,7 @@ the acceleration window around the current body twist, roll each out, reject
 colliding candidates, and return the closest collision-free control to the
 ergodic one (SURVEY.md sections 2 L4, 3, and A.6; Fox et al. 1997).
 
-TPU-first: the candidate grid is one big vmap — every (vx, vy, omega) cell
+Design: the candidate grid is one big vmap — every (vx, vy, omega) cell
 is rolled out in parallel, feasibility is a mask, and the argmin is a
 masked reduction. No branches; the whole fallback fuses into the batched
 controller step (SURVEY.md section 8 "branchy safety logic").

@@ -5,7 +5,7 @@ full-horizon ``solve`` producing a (3 x N) trajectory, and the backward
 co-state ``step``/``solve`` taking the rho-dot closure (SURVEY.md sections 2
 L2 and 4.2).
 
-TPU-first redesign: both passes are ``lax.scan`` bodies with tiny carries
+Design: both passes are ``lax.scan`` bodies with tiny carries
 (one state / one co-state vector), so XLA keeps the sequential loop entirely
 on-chip and the batch dimension (thousands of scenarios, via vmap/shard_map
 outside) provides the parallelism — per SURVEY.md section 8's "hard parts",
@@ -116,8 +116,8 @@ def constant_twist_poses(x0, tw, ts):
     Used for the DWA candidate rollouts and the emitted-control validation
     loop, where the reference holds the control constant anyway — this
     replaces H sequential RK4 scan steps with one vectorized evaluation
-    (exact, and the scans were the TPU throughput bottleneck: tiny per-step
-    compute, serial dependency).
+    (exact, and sequential scans are the costly shape on an accelerator:
+    tiny per-step compute, serial dependency).
 
     Args:
         x0: (..., 3) start pose.

@@ -5,17 +5,14 @@ Reference capability: every per-pose map query in the reference —
 grid lookups inside validation and the DWA loop (SURVEY.md sections 2 L1,
 3, 4.2) — i.e. random access into the occupancy-derived fields.
 
-TPU-first redesign (round-1 profiling result): XLA lowers both gathers and
-vmapped ``dynamic_slice`` with traced starts to a scalar-gather path that
-runs at ~13 ns/element on TPU — 2.3 M safety-stage queries cost ~60 ms/step
-at S=4096, dominating the whole solve. But every query a replan tick makes
-(rollout knots, validation path, DWA candidates) lies within ~1.2 m of the
-robot, so map access is restructured as:
+Design: every query a replan tick makes (rollout knots, validation path,
+DWA candidates) lies within ~1.2 m of the robot, so instead of gathers and
+vmapped ``dynamic_slice`` with traced starts (2.3 M safety-stage queries per
+tick at S=4096), map access is restructured as:
 
 1. **Patch extraction as one-hot matmuls**: a (P, P) window of the distance
    field around the pose is R @ F @ C^T with one-hot row/column selector
-   matrices — two tiny MXU matmuls per scenario (batched under vmap),
-   ~40x faster than vmapped dynamic_slice.
+   matrices — two tiny matmuls per scenario (batched under vmap).
 2. **Queries as hat-weight contractions**: bilinear interpolation at query
    points is w_y @ patch * w_x summed, where w are hat (tent) weights over
    the patch cells; nearest-cell reads use one-hot weights. XLA fuses the

@@ -9,7 +9,7 @@ range of the robot are revealed from a hidden ground-truth map (unknown ->
 free/occupied), and the entropy target is recomputed from the evolving
 belief.
 
-TPU-first: the reveal is a pure elementwise update over the (H, W) belief —
+Design: the reveal is a pure elementwise update over the (H, W) belief —
 a distance mask against the pose, no gathers/scatters — so thousands of
 per-scenario maps update in one fused op under vmap.
 """
@@ -54,7 +54,7 @@ def reveal_raycast(belief: GridMap, truth: GridMap, pose, sensor_range: float,
     item 7; reference semantics — its ``/map`` comes from a SLAM stack whose
     range sensor cannot see through obstacles, SURVEY.md section 4.3).
 
-    TPU-first, zero gathers/scatters: a polar **visibility transform** on a
+    Zero gathers/scatters: a polar **visibility transform** on a
     local window around the pose —
 
     1. window extraction as one-hot row/column matmuls (the ops/patch.py

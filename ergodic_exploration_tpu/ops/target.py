@@ -7,7 +7,7 @@ information-driven target recomputed from the occupancy grid each replan
 (SURVEY.md sections 2 L3, 3 "Target distribution" / "Information-map target",
 and BASELINE config 4).
 
-TPU-first: everything is a dense vectorized evaluation over the (static
+Design: everything is a dense vectorized evaluation over the (static
 shape) sample lattice; the MI map is a fused elementwise entropy + separable
 blur, recomputed per replan per scenario under vmap.
 """
@@ -153,8 +153,8 @@ def mi_target_values(grid, points, sensor_radius_cells: int = 0,
     normalized to sum 1 — recomputed each replan as the grid evolves
     (BASELINE config 4).
 
-    NOTE: ``sample_map_at`` is a TPU gather (~13 ns/element) — this function
-    is the slow/oracle twin for arbitrary point sets. The hot path
+    NOTE: ``sample_map_at`` is a gather — this function is the oracle twin
+    for arbitrary point sets. The hot path
     (Engine.phik_from_grid, replan_refresh_mi) uses
     :func:`phik_from_grid_separable`, which never gathers.
     """
@@ -169,7 +169,7 @@ def phik_from_grid_separable(grid, K: int, grid_samples, domain=None,
                              frontier_cells: int = 0,
                              occupied_threshold: float = 0.65):
     """Gather-free MI target coefficients phi_k from one occupancy grid —
-    the TPU-native config-4 per-tick refresh (reference capability:
+    the batched config-4 per-tick refresh (reference capability:
     the information-map target recomputed each replan, SURVEY.md sections 3
     "Information-map target" and 4.3).
 
@@ -185,9 +185,8 @@ def phik_from_grid_separable(grid, K: int, grid_samples, domain=None,
         Gx = Ax^T @ cosx   (W, K),  Ax[i, c] = [nearest col of lattice x_i == c]
         Gy = Ay^T @ cosy   (H, K)
 
-    — two (K, n)@(n, n)-scale MXU matmuls per scenario, ~9x fewer flops than
-    the dense (N, K^2) table and zero gathers/scatters (the round-1 rule:
-    gathers run at ~13 ns/element on TPU and are banned from hot paths).
+    — two (K, n)@(n, n)-scale matmuls per scenario, ~9x fewer flops than
+    the dense (N, K^2) table and zero gathers/scatters.
     The k = (0, 0) entry of the raw contraction IS the normalizer
     (cos(0) = 1), so free-space normalization costs nothing extra; the
     degenerate all-zero-info fallback (uniform over the lattice) has the
@@ -262,7 +261,7 @@ def sampling_one_hots(grid, grid_samples, domain):
     same program can pick adjacent cells eager vs jitted, or across
     kernels). Geometries whose lattice divides the cell size evenly (e.g.
     100 samples over 100 cells) are safe; parity tests should avoid exact
-    boundaries (see tests/test_mi_kernel.py)."""
+    boundaries (see tests/test_mi_refresh.py)."""
     h, w = grid.shape
     nsx, nsy = grid_samples
     fx = (jnp.arange(nsx, dtype=jnp.float32) + 0.5) / nsx
@@ -280,8 +279,7 @@ def lattice_resample(info, grid, grid_samples, domain):
     """Gather-free nearest-cell resampling of a per-cell map (H, W) onto the
     SEPARABLE sample lattice of ``domain`` -> (N,) in lattice (x-major)
     order. The resampling matrices are one-hot per axis, so this is two
-    (ns, n)-scale matmuls with wide (~ns) outputs — full MXU tiles, unlike
-    narrow K-wide contractions (see engine._phik_from_gmm_fn note)."""
+    (ns, n)-scale matmuls with wide (~ns) outputs."""
     nsx, nsy = grid_samples
     Ax, Ay = sampling_one_hots(grid, grid_samples, domain)
     _E = jax.lax.Precision.HIGHEST

@@ -3,7 +3,7 @@ parallelism inventory).
 
 The engine's parallelism is expressed entirely through ``jax.sharding``:
 - ``scenario`` axis: independent (map, pose) solves — DP-analog, zero
-  cross-scenario communication; spans chips via ICI and hosts via DCN.
+  cross-scenario communication; spans the cards of a host and the hosts.
 - ``sample`` axis: the 10k-grid-sample ergodic reduction sharded within a
   solve — the project's sequence-parallelism analog, combined with psum
   (Engine.phik_from_gmm_sample_sharded).
@@ -33,15 +33,18 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids=None,
 ) -> None:
-    """Bring up the single-controller-per-host SPMD runtime.
+    """Bring up the multi-process SPMD runtime.
 
-    Thin wrapper over ``jax.distributed.initialize`` (all arguments are
-    auto-detected on TPU pods; pass them explicitly elsewhere). After this,
-    ``jax.devices()`` spans every host and the same Engine code shards over
-    the global device set — XLA routes intra-slice collectives over ICI and
-    cross-host traffic over DCN with no transport code here (the build-side
-    replacement for the reference's ROS TCPROS boundary).
+    Thin wrapper over ``jax.distributed.initialize``; pass the coordinator
+    (``host:port``), the process count and this process's id (nothing
+    detects them on a plain GPU host). ``local_device_ids`` limits this
+    process to some of its host's cards — e.g. ``[process_id]`` for one
+    process per card on one host. After this, ``jax.devices()`` spans every
+    process and the same Engine code shards over the global device set;
+    XLA routes the collectives (NCCL on the GPU) with no transport code here
+    (the build-side replacement for the reference's ROS TCPROS boundary).
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -50,6 +53,8 @@ def initialize_multihost(
         kwargs["num_processes"] = num_processes
     if process_id is not None:
         kwargs["process_id"] = process_id
+    if local_device_ids is not None:
+        kwargs["local_device_ids"] = local_device_ids
     jax.distributed.initialize(**kwargs)
 
 

@@ -28,8 +28,7 @@ def summarize(diag, elapsed_s: Optional[float] = None) -> dict:
         "barrier_cost_mean": float(np.asarray(diag.barrier_cost, np.float64).mean()),
         "dwa_fallback_rate": float(np.asarray(diag.dwa_active, np.float64).mean()),
         # infeasible AMONG ACTIVE fallbacks: dwa_feasible is meaningful only
-        # where dwa_active (the fused kernel skips the sweep for tiles with
-        # no crash — solve_kernel.py lazy_dwa)
+        # where dwa_active (elsewhere the DWA result is discarded)
         "dwa_infeasible_rate": float(np.asarray(
             np.asarray(diag.dwa_active) & ~np.asarray(diag.dwa_feasible),
             np.float64).mean()),

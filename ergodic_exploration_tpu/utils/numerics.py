@@ -15,7 +15,7 @@ def normalize_angle(theta):
     """Wrap an angle (or array of angles) to (-pi, pi].
 
     Reference capability: angle normalization in ``numerics.hpp``
-    (SURVEY.md section 2 L0). Implemented branch-free for TPU.
+    (SURVEY.md section 2 L0). Implemented branch-free.
     """
     return jnp.pi - jnp.mod(jnp.pi - theta, 2.0 * jnp.pi)
 

@@ -1,58 +1,14 @@
-"""Profiling / timing utilities (SURVEY.md section 6, tracing row).
+"""Profiling utilities (SURVEY.md section 6, tracing row).
 
 Reference: ROS_INFO loop-latency deltas. Build-side: ``jax.profiler`` trace
-capture plus timing helpers that are correct on asynchronous attachments —
-on some TPU transports ``block_until_ready`` returns at RPC-enqueue rather
-than device completion and a host readback carries a fixed multi-ms round
-trip, so naive per-call timing is meaningless. The helpers here chain N
-dependent calls with ONE final scalar readback and difference chain lengths
-to cancel the round trip.
+capture. Time a call on the host clock up to ``jax.block_until_ready``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import jax
-import numpy as np
-
-
-def force_completion(tree) -> float:
-    """Force device completion of a pytree via a scalar readback; returns
-    the scalar (sum of first leaf) so the read cannot be elided."""
-    leaf = jax.tree.leaves(tree)[0]
-    return float(leaf.sum())
-
-
-def time_chained(step_fn, args, iters: int = 30, carry_index=0):
-    """Seconds per call of ``step_fn`` measured over a serial chain.
-
-    ``step_fn(*args)`` must return something whose ``carry_index``-th
-    element (or itself, if None) feeds back as the first argument —
-    creating a data dependency so the device cannot overlap iterations.
-    One warm-up call, then ``iters`` chained calls and a single readback.
-    """
-    out = step_fn(*args)
-    force_completion(out)
-    first = out if carry_index is None else out[carry_index]
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = step_fn(first, *args[1:])
-        first = out if carry_index is None else out[carry_index]
-    force_completion(out)
-    return (time.perf_counter() - t0) / iters
-
-
-def latency_p50(step_fn, args, n: int = 32, reps: int = 5) -> float:
-    """Median per-call device latency with the fixed host round trip
-    cancelled: (t_chain(2n) - t_chain(n)) / n."""
-    samples = []
-    for _ in range(reps):
-        t1 = time_chained(step_fn, args, iters=n) * n
-        t2 = time_chained(step_fn, args, iters=2 * n) * 2 * n
-        samples.append((t2 - t1) / n)
-    return float(np.median(samples))
 
 
 @contextlib.contextmanager

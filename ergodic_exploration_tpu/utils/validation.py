@@ -4,11 +4,9 @@ Two engine fast paths promise that every scenario shares one geometry and
 silently compute wrong physics if a caller violates that promise
 (VERDICT r3 weak 3 / next-round 4):
 
-- ``cfg.shared_maps``: the fused solve kernel extracts every scenario's
-  distance-field patch from row 0 of ``world.dist.dist``
-  (ops/solve_kernel.py, in-kernel shared-map extraction), and the GMM
-  refresh folds row 0's free mask into the dense basis table
-  (engine._phik_from_gmm_fn).
+- ``cfg.shared_maps``: the GMM refresh folds row 0's free mask into the
+  dense basis table (engine._phik_from_gmm_fn), so every scenario's world
+  must be row 0's.
 - the dense MI refresh (``engine._phik_grid_batch_dense_fn``): sampling and
   blur matrices are built from scenario 0's grid geometry.
 

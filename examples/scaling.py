@@ -1,7 +1,7 @@
-"""Scaling-efficiency harness (BASELINE.md: solves/s at 1 chip / 1 host / N hosts).
+"""Scaling-efficiency harness (BASELINE.md: solves/s at 1 card / 1 host / N hosts).
 
 Sweeps the scenario batch per device and, when more than one device is
-visible (a pod slice, or a multi-host run launched with
+visible (several cards, or a multi-process run launched with
 ``ergodic_exploration_tpu.parallel.initialize_multihost()``), shards the
 batch over the full scenario mesh. Prints one JSON line per point:
 
@@ -34,12 +34,9 @@ def run_point(S, mesh, iters=20):
 
     rng = np.random.default_rng(0)
     domain = Domain.create(0.0, 0.0, 5.0, 5.0)
-    # fused Pallas path on TPU (the bench configuration); plain XLA
-    # elsewhere (interpret-mode Pallas would dominate CPU wall time)
-    on_tpu = jax.default_backend() == "tpu"
+    # the bench configuration: one shared map, one shared history draw
     engine = Engine(default_config("cart").replace(
-        use_pallas=on_tpu, use_fused_solve=on_tpu,
-        shared_history_draw=on_tpu, shared_maps=on_tpu), mesh=mesh)
+        shared_history_draw=True, shared_maps=True), mesh=mesh)
     data = np.zeros((100, 100), dtype=np.float32)
     data[45:50, 20:80] = 1.0
     grids = GridMap(
@@ -64,7 +61,7 @@ def run_point(S, mesh, iters=20):
         return float(jax.jit(jnp.sum)(u))
 
     sc, u, d = engine.replan_refresh(sc, gmm, domain, world)
-    force(u)  # force completion (block_until_ready is async on this attachment)
+    force(u)  # compile + warm
     t0 = time.perf_counter()
     for _ in range(iters):
         sc, u, d = engine.replan_refresh(sc, gmm, domain, world)
@@ -78,11 +75,14 @@ def main():
     ap.add_argument("--batches", default="512,1024,2048,4096")
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--cpu", action="store_true")
-    # explicit multi-process launch (CPU or non-pod): run one copy of this
-    # script per "host" with the same --coordinator/--nproc and its --pid
+    # explicit multi-process launch: run one copy of this script per
+    # process with the same --coordinator/--nproc and its --pid; on a host
+    # with one card per process, each process takes card --pid
     ap.add_argument("--coordinator", default=None, help="host:port")
     ap.add_argument("--nproc", type=int, default=None)
     ap.add_argument("--pid", type=int, default=None)
+    ap.add_argument("--local-device", type=int, default=None,
+                    help="this process's card (default: --pid; -1: every card)")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
 
@@ -93,8 +93,11 @@ def main():
     if args.multihost:
         from ergodic_exploration_tpu.parallel import initialize_multihost
 
+        card = args.pid if args.local_device is None else args.local_device
         initialize_multihost(coordinator_address=args.coordinator,
-                             num_processes=args.nproc, process_id=args.pid)
+                             num_processes=args.nproc, process_id=args.pid,
+                             local_device_ids=None if args.cpu or card is None or card < 0
+                             else [card])
 
     from ergodic_exploration_tpu.engine import make_scenario_mesh
 

@@ -8,7 +8,7 @@
 // Huttenlocher EDT, O(HW)) plus ROS int8 ingest and the entropy map, so a
 // real-time single-robot host loop never round-trips a map through the
 // accelerator, and batched exploration jobs can preprocess thousands of
-// maps on host threads while the TPU solves (the data-loader role).
+// maps on host threads while the device solves (the data-loader role).
 //
 // Exposed as a plain C ABI consumed via ctypes (see
 // ergodic_exploration_tpu/native.py). No Python.h dependency.
@@ -152,7 +152,7 @@ void eet_edt2d(const float* occ_prob, int32_t h, int32_t w,
             grad_out);
 }
 
-// Batched EDT over n maps using host threads (the TPU feed path).
+// Batched EDT over n maps using host threads (the device feed path).
 void eet_edt2d_batch(const float* occ_prob, int32_t n, int32_t h, int32_t w,
                      float occupied_threshold, float resolution, float far,
                      float* dist_out, float* grad_out, int32_t n_threads) {

@@ -86,11 +86,8 @@ _SCALAR_FIELD_SAMPLES = {
     "val_horizon": (5, 5),
     "val_dt": (0.05, 0.05),
     "precision": ("bf16", "bf16"),
-    "use_pallas": (False, False),
-    "use_fused_solve": (True, True),
     "shared_maps": (True, True),
     "shared_history_draw": (True, True),
-    "solve_tile": (256, 256),
     "validate_shared": (False, False),
     "scan_unroll": (4, 4),
     "mi_frontier_cells": (5, 5),
@@ -125,7 +122,7 @@ def test_yaml_scalar_samples_cover_all_fields():
 
 def test_yaml_bool_strings_and_rejects_garbage():
     assert load_yaml_config({"enable_safety": "false"}).enable_safety is False
-    assert load_yaml_config({"use_fused_solve": 1}).use_fused_solve is True
+    assert load_yaml_config({"shared_maps": 1}).shared_maps is True
     with pytest.raises(ValueError):
         load_yaml_config({"enable_safety": 0.5})
 
@@ -175,3 +172,41 @@ def test_orbit_window_clamps_to_small_buffers():
     assert bool(orbit_guard(cfg, buf, jnp.asarray([1.0, 1.0])))
     off = cfg.replace(orbit_window=0)
     assert not bool(orbit_guard(off, buf, jnp.asarray([1.0, 1.0])))
+
+
+def test_flat_yaml_parser_reads_the_shipped_schema():
+    """config/*.yaml load with the standard library alone: scalars, inline
+    lists, comments (full-line and trailing), quoted strings, null, bools."""
+    from ergodic_exploration_tpu.config import parse_flat_yaml
+
+    text = (
+        "# header comment\n"
+        "model: omni   # trailing comment\n"
+        "dt: 0.1\n"
+        "horizon: 20\n"
+        "control_min: [-6.0, -6, 6e-1]\n"
+        "empty: []\n"
+        "frame: 'map # not a comment'\n"
+        "batch_size: null\n"
+        "enable_safety: false\n"
+        "\n"
+    )
+    parsed = parse_flat_yaml(text)
+    assert parsed == {
+        "model": "omni", "dt": 0.1, "horizon": 20,
+        "control_min": [-6.0, -6, 0.6], "empty": [],
+        "frame": "map # not a comment", "batch_size": None,
+        "enable_safety": False,
+    }
+    assert load_yaml_config({"batch_size": parsed["batch_size"]}).buffer_batch is None
+
+
+def test_flat_yaml_parser_rejects_nested_mappings(tmp_path):
+    from ergodic_exploration_tpu.config import parse_flat_yaml
+
+    with pytest.raises(ValueError, match="flat"):
+        parse_flat_yaml("dwa:\n  horizon: 10\n")
+    p = tmp_path / "bad.yaml"
+    p.write_text("model: cart\nr: [1.0, 2.0\n")
+    with pytest.raises(ValueError, match="unterminated"):
+        load_yaml_config(str(p))

@@ -1,7 +1,7 @@
 """Engine tests: batched replan/explore, mesh sharding over 8 virtual CPU
-devices (SURVEY.md section 5 item 3 — shard_map/pjit logic without TPU
-hardware), and scenario-parallel consistency with the single-scenario
-controller (BASELINE config 5 semantics)."""
+devices (SURVEY.md section 5 item 3 — shard_map/pjit logic without
+accelerator hardware), and scenario-parallel consistency with the
+single-scenario controller (BASELINE config 5 semantics)."""
 
 import jax
 import jax.numpy as jnp
@@ -265,32 +265,27 @@ def test_sample_sharded_degenerate_mask_matches_unsharded():
         covs=np.tile((1e-4 * np.eye(2, dtype=np.float32))[None, None], (S, 1, 1, 1)),
         weights=np.ones((S, 1), np.float32),
     )
-    # reference semantics: per-scenario normalize_phi (XLA, no Pallas)
-    p_ref = Engine(cfg.replace(use_pallas=False)).phik_from_gmm(gmm, DOM, mask)
+    # reference semantics: per-scenario normalize_phi (plain XLA path)
+    p_ref = Engine(cfg).phik_from_gmm(gmm, DOM, mask)
     # the non-empty-mask degenerate rows carry the uniform-over-mask
     # fallback, not ~0 coefficients: phik[0,0] of a distribution is 1/h00
     assert float(np.abs(np.asarray(p_ref)[0, 0, 0])) > 0.1
 
     p_m = eng_m.phik_from_gmm(gmm, DOM, mask)  # sample-sharded psum path
-    p_pallas = eng_1.phik_from_gmm(gmm, DOM, mask)  # masked Pallas kernel
-    for name, p in (("sharded", p_m), ("pallas", p_pallas)):
-        assert np.all(np.isfinite(np.asarray(p))), name
-        np.testing.assert_allclose(np.asarray(p), np.asarray(p_ref),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    assert np.all(np.isfinite(np.asarray(p_m)))
+    np.testing.assert_allclose(np.asarray(p_m), np.asarray(p_ref), rtol=1e-5, atol=1e-6)
 
     # shared_maps fold (identical masks required): same fallback on the
-    # folded-renorm path, XLA and Pallas flavors
+    # folded-renorm path
     grids_sh = GridMap(jnp.broadcast_to(jnp.asarray(data[0]), (S, 20, 20)),
                        jnp.zeros((S, 2), jnp.float32),
                        jnp.full((S,), 0.1, jnp.float32))
     mask_sh = eng_1.prepare_world(grids_sh).free_mask
-    p_ref_sh = Engine(cfg.replace(use_pallas=False)).phik_from_gmm(gmm, DOM, mask_sh)
-    for use_pallas in (False, True):
-        p_fold = Engine(cfg.replace(shared_maps=True, use_pallas=use_pallas)
-                        ).phik_from_gmm(gmm, DOM, mask_sh)
-        np.testing.assert_allclose(
-            np.asarray(p_fold), np.asarray(p_ref_sh), rtol=1e-5, atol=1e-6,
-            err_msg=f"fold use_pallas={use_pallas}")
+    p_ref_sh = Engine(cfg).phik_from_gmm(gmm, DOM, mask_sh)
+    p_fold = Engine(cfg.replace(shared_maps=True)).phik_from_gmm(gmm, DOM, mask_sh)
+    np.testing.assert_allclose(
+        np.asarray(p_fold), np.asarray(p_ref_sh), rtol=1e-5, atol=1e-6,
+        err_msg="shared-map fold")
 
     # MI twin: fully-occupied maps zero the info map everywhere; the
     # separable path's uniform-over-lattice fallback must match the
@@ -327,22 +322,6 @@ def test_explore_mapping_reveals_and_covers():
     np.testing.assert_array_equal(b[known], truth_data[known])
 
 
-def test_pallas_phik_matches_xla_path():
-    """The fused Pallas target-refresh kernel == the XLA dense-table path
-    (interpret mode on CPU; compiled Mosaic on TPU)."""
-    cfg = _cfg(use_pallas=True)
-    S = 16
-    rng = np.random.default_rng(5)
-    gmm = target.GaussianMixture.create(
-        means=rng.uniform(0.3, 1.7, (S, 3, 2)).astype(np.float32),
-        covs=np.tile((0.1 * np.eye(2, dtype=np.float32))[None, None], (S, 3, 1, 1)),
-        weights=np.asarray(rng.uniform(0.5, 2.0, (S, 3)), np.float32),
-    )
-    p_pallas = Engine(cfg).phik_from_gmm(gmm, DOM)
-    p_xla = Engine(cfg.replace(use_pallas=False)).phik_from_gmm(gmm, DOM)
-    np.testing.assert_allclose(np.asarray(p_pallas), np.asarray(p_xla), atol=2e-5)
-
-
 def _obstacle_grids(S, noise=False):
     """Batched 20x20-cell map over DOM with a wall band (rows 9..11)."""
     data = np.zeros((20, 20), np.float32)
@@ -358,7 +337,7 @@ def test_batched_gmm_phik_is_free_space_masked():
     """VERDICT r1 item 2: the BATCHED GMM target must be normalized over
     free space exactly like the single-robot node's masked phik
     (reference target.hpp semantics, SURVEY.md A.3)."""
-    cfg = _cfg(use_pallas=False)
+    cfg = _cfg()
     S = 4
     engine = Engine(cfg)
     grids = _obstacle_grids(S)
@@ -394,25 +373,6 @@ def test_batched_gmm_phik_is_free_space_masked():
     sc = engine.init_scenarios(np.tile(np.array([[0.4, 0.4, 0.0]]), (S, 1)))
     _, u, _ = jax.jit(engine._refresh_and_replan_fn)(sc, gmm, DOM, world)
     assert np.all(np.isfinite(np.asarray(u)))
-
-
-def test_pallas_phik_masked_matches_xla_masked():
-    """Masked Pallas refresh kernel == masked XLA dense-table path."""
-    cfg = _cfg(use_pallas=True)
-    S = 16
-    rng = np.random.default_rng(7)
-    gmm = target.GaussianMixture.create(
-        means=rng.uniform(0.3, 1.7, (S, 3, 2)).astype(np.float32),
-        covs=np.tile((0.1 * np.eye(2, dtype=np.float32))[None, None], (S, 3, 1, 1)),
-        weights=np.asarray(rng.uniform(0.5, 2.0, (S, 3)), np.float32),
-    )
-    grids = _obstacle_grids(S)
-    mask = Engine(cfg).prepare_world(grids).free_mask
-    assert mask.shape == (S, int(np.prod(cfg.grid_samples)))
-    assert float(mask.min()) == 0.0 and float(mask.max()) == 1.0
-    p_pallas = Engine(cfg).phik_from_gmm(gmm, DOM, mask)
-    p_xla = Engine(cfg.replace(use_pallas=False)).phik_from_gmm(gmm, DOM, mask)
-    np.testing.assert_allclose(np.asarray(p_pallas), np.asarray(p_xla), atol=2e-5)
 
 
 def test_long_horizon_stability():
@@ -509,8 +469,7 @@ def test_warmup_compiles_hot_paths_and_first_tick_is_fast(tmp_path):
 def test_shared_maps_mask_fold_matches_per_scenario_mask():
     """shared_maps=True folds the free-space mask into the dense basis table
     (engine._phik_from_gmm_fn) and renormalizes via the k=(0,0) coefficient;
-    result must equal the explicit per-scenario masked path, on both the
-    XLA and Pallas refresh paths."""
+    result must equal the explicit per-scenario masked path."""
     S = 8
     rng = np.random.default_rng(11)
     gmm = target.GaussianMixture.create(
@@ -519,17 +478,13 @@ def test_shared_maps_mask_fold_matches_per_scenario_mask():
         weights=np.asarray(rng.uniform(0.5, 2.0, (S, 2)), np.float32),
     )
     grids = _obstacle_grids(S)  # identical rows -> shared map
-    for use_pallas in (False, True):
-        cfg = _cfg(use_pallas=use_pallas)
-        mask = Engine(cfg).prepare_world(grids).free_mask
-        p_ref = Engine(cfg).phik_from_gmm(gmm, DOM, mask)
-        p_fold = Engine(cfg.replace(shared_maps=True)).phik_from_gmm(gmm, DOM, mask)
-        np.testing.assert_allclose(
-            np.asarray(p_fold), np.asarray(p_ref), atol=2e-5,
-            err_msg=f"use_pallas={use_pallas}",
-        )
+    cfg = _cfg()
+    mask = Engine(cfg).prepare_world(grids).free_mask
+    p_ref = Engine(cfg).phik_from_gmm(gmm, DOM, mask)
+    p_fold = Engine(cfg.replace(shared_maps=True)).phik_from_gmm(gmm, DOM, mask)
+    np.testing.assert_allclose(np.asarray(p_fold), np.asarray(p_ref), atol=2e-5)
     # a 1-D shared mask is accepted directly
-    p_1d = Engine(_cfg(use_pallas=False).replace(shared_maps=True)).phik_from_gmm(
+    p_1d = Engine(cfg.replace(shared_maps=True)).phik_from_gmm(
         gmm, DOM, mask[0]
     )
     np.testing.assert_allclose(np.asarray(p_1d), np.asarray(p_ref), atol=2e-5)

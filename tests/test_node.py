@@ -199,26 +199,3 @@ def test_node_pipelined_twists_are_unpipelined_shifted_by_one():
     np.testing.assert_allclose(
         [float(d.ergodic_metric) for d in d_pipe[1:]],
         [float(d.ergodic_metric) for d in d_ref], rtol=1e-6)
-
-
-@pytest.mark.fused
-def test_node_fused_solve_matches_vmapped_path():
-    """VERDICT r1 item 6: the single-robot node rides the fused Pallas
-    descent core when use_fused_solve is on, matching the XLA path."""
-    gmm = target.GaussianMixture.create(
-        means=np.array([[1.5, 1.5]], np.float32), covs=0.1 * np.eye(2)[None])
-    data = np.zeros((40, 40), np.int8)
-    data[18:22, 10:30] = 100
-
-    def run(fused):
-        node = ExplorationNode(_cfg(use_fused_solve=fused), target=gmm,
-                               use_native=False)
-        node.on_map(data, resolution=0.05)
-        node.on_odom([0.5, 0.5, 0.3])
-        tws = []
-        for _ in range(5):
-            tw, diag = node.step()
-            tws.append(tw)
-        return np.stack(tws)
-
-    np.testing.assert_allclose(run(True), run(False), atol=5e-4)

@@ -136,7 +136,7 @@ def test_default_config_explores_multiroom_map():
     (a) move at >= 0.04 m/s mean speed, (b) reveal >= 25% of the building,
     and (c) keep improving coverage late in the run (not plateau at the
     start-room ceiling). Round-4's shipped defaults fail all three."""
-    from tools.tpu_quality import build_truth
+    from tools.quality import build_truth
 
     S, n_ticks, refresh_every = 4, 400, 10
     cfg = default_config("omni")

@@ -1,4 +1,4 @@
-"""Utility-layer tests: profiling timers, viz rendering."""
+"""Utility-layer tests: compile cache, viz rendering, checkpoints."""
 
 import os
 
@@ -6,19 +6,35 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ergodic_exploration_tpu.utils.profiling import force_completion, time_chained
+
+def test_compile_cache_defaults_to_a_fixed_path_in_the_checkout(monkeypatch):
+    """Unset JAX_COMPILATION_CACHE_DIR: the cache goes to <repo>/.jax_cache
+    (a fixed path, never ~ or a temp name) and JAX is pointed there."""
+    from ergodic_exploration_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = compile_cache.enable_persistent_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(root, ".jax_cache") and os.path.isdir(path)
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
-def test_time_chained_measures_dependent_steps():
-    @jax.jit
-    def step(x, a):
-        return x @ a, jnp.sum(x)
+def test_compile_cache_leaves_the_env_dir_alone(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: nothing is changed — JAX reads the
+    variable itself and the cache lives there only."""
+    from ergodic_exploration_tpu.utils import compile_cache
 
-    a = jnp.eye(64)
-    x = jnp.ones((64, 64))
-    dt = time_chained(step, (x, a), iters=5, carry_index=0)
-    assert dt > 0.0
-    assert force_completion((x, a)) == 64 * 64
+    target = str(tmp_path / "cc")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", target)
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.enable_persistent_cache() == target
+    assert compile_cache.enable_persistent_cache("/elsewhere") == target
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not os.path.exists("/elsewhere")
 
 
 def test_viz_renders_figure(tmp_path):

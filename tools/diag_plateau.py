@@ -30,7 +30,7 @@ def log(msg):
 
 def main(S=16, n_ticks=1500, refresh_every=10, sensor_range=1.5, seed=0,
          tag="", **overrides):
-    from tools.tpu_quality import build_truth
+    from tools.quality import build_truth
     from ergodic_exploration_tpu.config import default_config
     from ergodic_exploration_tpu.engine import Engine
     from ergodic_exploration_tpu.ops.distance import DistanceField

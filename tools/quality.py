@@ -10,8 +10,9 @@ curves the throughput numbers don't show:
 - ergodic metric (against each refresh's CURRENT MI target) vs tick
 
 Writes docs/quality_config4.png + docs/quality_config4.json and prints the
-headline numbers. ONE process; never run concurrently with bench/tests on
-the TPU.
+headline numbers.
+
+Run: python tools/quality.py
 """
 
 import json
@@ -39,8 +40,7 @@ def build_truth(S: int):
     # Doorways must exceed 2*(boundary_radius + a margin): the validator
     # refuses contact (d <= 0) gaps. At the round-5 defaults (d_safe=0.2)
     # the 1.3 m / 1.6 m doors are barrier-open; at the old d_safe=0.5 the
-    # facing barrier bands overlapped and sealed them (docs/PERFORMANCE.md
-    # round 5).
+    # facing barrier bands overlapped and sealed them.
     data = np.zeros((100, 100), np.float32)
     data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 1.0  # outer walls
     data[45:48, 0:64] = 1.0  # long wall, 1.3 m doorway on the right
@@ -54,36 +54,16 @@ def build_truth(S: int):
     )
 
 
-def main(S=256, n_refreshes=500, refresh_every=10, sensor_range=1.5,
-         seed=0):
+def spawn_poses(truth, cfg, S: int, seed: int = 0):
+    """(S, 3) start poses rejection-sampled over the map's free space with
+    REAL clearance (EDT > boundary_radius + d_safe): a spawn inside the
+    safety margin is a validation crash with an infeasible DWA -> the robot
+    parks forever (correct reference semantics), so keep spawns legal."""
     import jax
-    import jax.numpy as jnp
 
-    log(f"devices: {jax.devices()}")
-    float((jnp.ones((8, 8)) @ jnp.ones((8, 8))).sum())
-    log("warm-up done")
-
-    from ergodic_exploration_tpu.config import default_config
-    from ergodic_exploration_tpu.engine import Engine
-    from ergodic_exploration_tpu.grid import Domain
-
-    # OMNI model (the reference's second platform): full planar mobility,
-    # no cart v~0 stall singularity (docs/PARITY.md; .claude/skills/verify),
-    # so reachability reflects the MAP, not the model. Round 5: pure
-    # DEFAULTS — the retuned gains + frontier MI target + orbit guard took
-    # the fleet median from 37% to 98% coverage on this map
-    # (docs/PERFORMANCE.md round 5).
-    cfg = default_config("omni")
-    engine = Engine(cfg)
-    truth = build_truth(S)
-
-    rng = np.random.default_rng(seed)
-    # rejection-sample spawns over the map's free space with REAL clearance
-    # (EDT > boundary_radius + d_safe): a spawn inside the safety margin is
-    # a validation crash with an infeasible DWA -> the robot parks forever
-    # (correct reference semantics, measured), so keep spawns legal
     from ergodic_exploration_tpu.ops.distance import DistanceField
 
+    rng = np.random.default_rng(seed)
     g0t = jax.tree.map(lambda a: a[0], truth)
     edt = np.asarray(DistanceField.from_grid(g0t).dist)
     need = cfg.boundary_radius + cfg.d_safe
@@ -93,7 +73,29 @@ def main(S=256, n_refreshes=500, refresh_every=10, sensor_range=1.5,
         ij = (int(p_[1] / 0.05), int(p_[0] / 0.05))
         if edt[ij] > need:
             xs.append([p_[0], p_[1], rng.uniform(-np.pi, np.pi)])
-    x0 = np.asarray(xs, np.float32)
+    return np.asarray(xs, np.float32)
+
+
+def main(S=256, n_refreshes=500, refresh_every=10, sensor_range=1.5,
+         seed=0):
+    import jax
+
+    log(f"devices: {jax.devices()}")
+
+    from ergodic_exploration_tpu.config import default_config
+    from ergodic_exploration_tpu.engine import Engine
+    from ergodic_exploration_tpu.grid import Domain
+
+    # OMNI model (the reference's second platform): full planar mobility,
+    # no cart v~0 stall singularity (docs/PARITY.md; .claude/skills/verify),
+    # so reachability reflects the MAP, not the model. Round 5: pure
+    # DEFAULTS — the retuned gains + frontier MI target + orbit guard took
+    # the fleet median from 37% to 98% coverage on this map.
+    cfg = default_config("omni")
+    engine = Engine(cfg)
+    truth = build_truth(S)
+
+    x0 = spawn_poses(truth, cfg, S, seed)
     sc = engine.init_scenarios(x0)
 
     t0 = time.time()
